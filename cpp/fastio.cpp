@@ -6,7 +6,7 @@
 // kept at 0" in its own docs. This native library replaces that with a
 // thread pool doing positioned reads (pread) directly into the caller's
 // buffer (zero-copy into numpy), plus an async one-chunk-ahead prefetcher so
-// disk IO overlaps host->device transfer and TPU compute.
+// disk IO overlaps host->device transfer and device compute.
 //
 // Exposed C ABI (consumed via ctypes from localmd_tpu.io.native):
 //   fastio_open(path)                         -> handle (>=0) or -errno

@@ -1,11 +1,11 @@
-"""localmd_tpu — TPU-native localized Penalized Matrix Decomposition.
+"""localmd_tpu — localized Penalized Matrix Decomposition in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the PMD compression/denoising
+A ground-up JAX/XLA re-design of the PMD compression/denoising
 pipeline for functional neuroimaging movies (capability parity with the
 reference ``localmd`` package; see SURVEY.md for the layer map).
 
 Public surface mirrors the reference ``localmd/__init__.py`` (5 symbols)
-plus the TPU-native extras (serialization helpers, datasets, sharded runner).
+plus extras (serialization helpers, datasets, sharded runner).
 """
 
 from localmd_tpu.pipeline import localmd_decomposition

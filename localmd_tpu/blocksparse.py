@@ -4,13 +4,13 @@ The reference assembles its global spatial basis as a scipy COO matrix built
 from Python lists (reference decomposition.py:818-843) and then does sparse
 CPU matmuls (``u.T.dot(u)``, BCOO products) for the factorized SVD and the
 streaming temporal regression (reference decomposition.py:974-981,
-pmd_loader.py:327). On TPU we exploit the *known* block structure instead:
+pmd_loader.py:327). Here we exploit the *known* block structure instead:
 
 ``U`` is stored as dense per-block panels ``(n_blocks, p, S)`` (p = pixels
 per block, S = component slots, zero-padded past each block's kept rank)
 plus a static row-id map ``(n_blocks, p)``, and an extra dense column block
 for the global low-rank background basis. Every product we need is then a
-batched dense matmul on the MXU plus one gather or scatter-add:
+batched dense matmul plus one gather or scatter-add:
 
 - ``U @ X``   : gather X rows per block -> batched matmul -> scatter-add.
 - ``U.T @ Y`` : gather Y rows per block -> batched (S,p)x(p,m) matmul.
@@ -36,6 +36,8 @@ import numpy as np
 from jax import Array
 
 import scipy.sparse
+
+from localmd_tpu.capabilities import resolve
 
 
 def _mm(a: Array, b: Array) -> Array:
@@ -98,17 +100,14 @@ def _coset_accum(
 ) -> Array:
     """canvas (d1, d2, m) += one coset's placed panel contributions.
 
-    XLA's scatter-add serializes per-row updates (139 ms at 1024^2 FOV /
-    m=337 on v5e, vs 25 ms for the matmul itself) and per-pixel gathers pay
-    an 8-sublane tile read amplification; the coset form touches only
-    sequential full-bandwidth tiles (transpose/reshape/pad/add). One jit
-    call PER COSET with a donated canvas keeps peak transient memory to a
-    single coset's chain instead of letting the scheduler hold all cosets'
-    intermediates live at once — the fused all-cosets variant OOMed a v5e
-    at 1024^2 alongside a device-resident movie. Measured at 1024^2/m=340
-    (one process, in sequence): scatter 251-313 ms, this pad+add form
-    220-226 ms, a static-slice ``.at[h0:h1, w0:w1].add`` form 339 ms —
-    pad-then-full-canvas-add is the fastest XLA lowering of the three."""
+    XLA's scatter-add serializes overlapping per-row updates; the coset
+    form touches only sequential whole tiles (transpose/reshape/pad/add),
+    because blocks within one coset are disjoint. One jit call PER COSET
+    with a donated canvas keeps peak transient memory to a single coset's
+    chain instead of letting the scheduler hold all cosets' intermediates
+    live at once (a fused all-cosets variant ran out of device memory at
+    1024^2 alongside a device-resident movie). Not measured on the H100
+    against the scatter-add form."""
     d1, d2 = canvas.shape[0], canvas.shape[1]
     a1, a2 = meta[4], meta[5]
     tile = _coset_tile(
@@ -137,17 +136,14 @@ def _flatten_write_cols(out: Array, canvas: Array, s: Array, order: str) -> Arra
 # overlaps only its <=8 grid neighbors, and every overlap region is a whole
 # number of (h1, h2) cells. right^T (U^T U) right then reduces to batched
 # (S, S)-class products over blocks and neighbor offsets, with no (d, m)
-# canvas, no scatter and no gather (measured 3.7 ms vs 23.8 ms for the
-# canvas form at the 512^2 bench shapes, scripts/ablate_gram_vproj.py).
-# "auto" enables it off-CPU (CPU keeps the canvas path so golden/parity
-# numerics are byte-stable); True/False force it for tests.
+# canvas, no scatter and no gather. "auto" reads the backend's row of
+# localmd_tpu.capabilities.FAST_PATHS (the CPU row keeps the canvas path so
+# golden/parity numerics are byte-stable); True/False force it.
 BANDED_GRAM = "auto"
 
 
 def _banded_gram_enabled() -> bool:
-    return BANDED_GRAM is True or (
-        BANDED_GRAM == "auto" and jax.default_backend() not in ("cpu",)
-    )
+    return resolve(BANDED_GRAM, "banded_gram")
 
 
 @partial(jax.jit, static_argnums=(4, 5, 6, 7))
@@ -224,18 +220,13 @@ def _banded_gram_quad(
 # Coset-view V-projection fast path: V = P^T (U~^T X) computed by
 # contracting block pixels against coset VIEWS of each raw (t, d1, d2)
 # chunk — a reshape, not a gather — so the (d, r') dense canvas a = U @ P
-# of the folded-projector path never exists (that canvas build was the
-# single largest warm op of the V stage: ~24 ms at the 512^2 bench shapes,
-# vs ~50 ms for the whole canvas+Pallas stage; the coset form measured
-# ~38 ms end-to-end, scripts/ablate_gram_vproj.py). Regular grids only
+# of the folded-projector path never exists. Regular grids only
 # (BlockGrid.cell_geometry). Same flag semantics as BANDED_GRAM.
 COSET_VPROJ = "auto"
 
 
 def _coset_vproj_enabled() -> bool:
-    return COSET_VPROJ is True or (
-        COSET_VPROJ == "auto" and jax.default_backend() not in ("cpu",)
-    )
+    return resolve(COSET_VPROJ, "coset_vproj")
 
 
 def coset_vproj_eligible(u) -> bool:
@@ -262,7 +253,7 @@ def build_vproj_cells(
     per chunk — it does not exist yet when this is dispatched).
 
     Needs nothing from the factorized-SVD chain, so the pipeline fires it
-    right after U is assembled: the ~15-20 ms build then overlaps the
+    right after U is assembled: the build then overlaps the
     blocking counts pull and the projector chain instead of sitting on the
     V-regression critical path.
 
@@ -270,8 +261,7 @@ def build_vproj_cells(
     exactly 4 blocks (one per corner role (a, b)); stacking those panel
     slices — and the background columns — along one 4*S + K_bg axis lets
     the whole U~^T X contract as ONE canonical batched dot per chunk
-    (measured 4.2 ms vs 27.6 ms for four strided coset-view dots at the
-    512^2 bench shapes, scripts/ablate_vproj_parts.py)."""
+    instead of four strided coset-view dots."""
     from localmd_tpu.ops.tiling import unflatten_fov
 
     d1, d2 = fov
@@ -285,8 +275,8 @@ def build_vproj_cells(
     # (b2, b1) = (j, i) into cells (jc, jr, ic, ir)
     pan6 = pan_t.reshape(n1, n2, 2, h2, 2, h1, s_slots)
     # slab-per-corner, edge-padded to the cell grid, then ONE concat along
-    # the packed axis: interior ``.at[slice].set`` writes lower to scatters
-    # that cost ~15 ms at the bench shapes; pad+concat is ~4x cheaper
+    # the packed axis: interior ``.at[slice].set`` writes lower to
+    # scatters, pad+concat to plain copies
     slabs = []
     for a in (0, 1):            # corner along dim1 (i)
         for b in (0, 1):        # corner along dim2 (j)
@@ -373,13 +363,13 @@ class BlockSparseMatrix:
     rows: Array              # (n_blocks, p) int32 global pixel ids
     n_pixels: int
     dense_basis: Array       # (n_pixels, K) float32 (background; K >= 0)
-    # Optional geometry (set by the pipeline) enabling the fused Pallas
-    # reconstruction path: block offsets and (b1, b2) block shape.
+    # Optional geometry (set by the pipeline): block offsets and (b1, b2)
+    # block shape, used by ROI slicing to bound its canvas.
     starts: Optional[Array] = None
     block_shape: Optional[Tuple[int, int]] = None
     # Optional coset placement info (BlockGrid.coset_info()): routes
     # ``matmul``'s overlap-add through disjoint-coset pad/transpose/reshape
-    # instead of an XLA scatter-add (2.5x+ at 1024^2 FOV).
+    # instead of an XLA scatter-add.
     coset_info: Optional[tuple] = None
     # Optional regular-grid cell geometry (BlockGrid.cell_geometry()):
     # (n1, n2, h1, h2) enables the banded-Gram fast path of
@@ -479,11 +469,10 @@ class BlockSparseMatrix:
         """U.T @ y for y of shape (n_pixels, m) -> (R, m), block-chunked to
         bound the (g, p, m) gather intermediate.
 
-        Stays on the gather path by measurement: a coset slice/transpose
-        extraction (inverse of ``matmul``'s placement) ran 144-164 ms vs
-        99-120 ms for the gather at 1024^2/m=340 on v5e — reads don't pay
-        the serialization penalty scatter-add writes do
-        (scripts/ablate_coset.py r_gather/r_coset)."""
+        Stays on the gather path: reads do not pay the serialization
+        penalty that scatter-add writes do, so the coset slice/transpose
+        extraction (inverse of ``matmul``'s placement) has nothing to win
+        here. Not measured on the H100."""
         y = jnp.asarray(y)
         m = y.shape[-1]
         g = _block_group_size(self.panels.shape[1], m)
@@ -549,8 +538,7 @@ class BlockSparseMatrix:
 
         Computed as Z^T Z with Z = U @ right when the (n_pixels, m) canvas
         fits one pass: mathematically identical to right^T (U^T (U right)),
-        but skips the rmatmul re-gather of the canvas back to panel rows —
-        measured 41.6 ms -> 13.9 ms at the 512^2 bench shapes (m = 336).
+        but skips the rmatmul re-gather of the canvas back to panel rows.
         Column-chunked calls (m > col_chunk, the no-prune long-T regime)
         keep the gram_matmul form, whose per-chunk intermediates stay
         (n_pixels, col_chunk) without needing cross-chunk Z products.

@@ -72,6 +72,9 @@ def main(argv=None):
     _add_export(sub)
     args = parser.parse_args(argv)
 
+    from localmd_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cmd == "compress":
         import localmd_tpu
 

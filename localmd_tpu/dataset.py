@@ -1,7 +1,7 @@
 """Lazy dataset protocol + concrete movie readers.
 
 Mirrors the capability surface of the reference ``lazy_data_loader`` ABC and
-``TiffArray`` (reference dataset.py:7-181), with a TPU-pipeline-friendly
+``TiffArray`` (reference dataset.py:7-181), with a device-pipeline-friendly
 contract: datasets yield ``(T, d1, d2)`` numpy frames on the host; all
 device placement happens downstream in the loader.
 

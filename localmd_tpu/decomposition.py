@@ -7,7 +7,7 @@ switching the package name to ``localmd_tpu`` keeps those imports working:
         localmd_decomposition, single_block_md, windowed_pmd, ...
     )
 
-The per-block functions are thin adapters over the batched TPU kernels (see
+The per-block functions are thin adapters over the batched device kernels (see
 localmd_tpu.compat); the rest are the real implementations re-exported under
 their reference names (reference decomposition.py symbol surface).
 """

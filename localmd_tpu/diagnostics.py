@@ -13,7 +13,7 @@ Parity targets (reference diagnostic_plots.py):
 - ``plot_pmd_components`` + ``construct_index`` (reference :363-473) —
   per-component HTML report browser.
 
-TPU rethink: the reference computes every image with an O(d1*d2*8) host
+Design: the reference computes every image with an O(d1*d2*8) host
 Python loop around a tiny per-pair jit (reference :131-156, :195-220,
 :249-269), with the whole movie in memory. Here every image is a STREAMED
 accumulation: per-pixel sums / squared sums / 8 shifted cross-products are
@@ -173,7 +173,7 @@ def make_correlation_image(
 @partial(jax.jit, static_argnums=(0, 1))
 def _autocorr_chunk_update(lag: int, n_tail: int, s1, s2, c, ext):
     """One fused program per chunk (an eager per-op loop would pay ~8
-    dispatch round trips per chunk on remote TPUs). ``ext`` is the previous
+    dispatches per chunk). ``ext`` is the previous
     ``lag``-frame tail (already reference-subtracted) concatenated with the
     new offset chunk; ``n_tail`` leading frames are excluded from the
     moment sums (they were counted in the previous step)."""

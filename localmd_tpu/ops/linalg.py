@@ -1,19 +1,18 @@
-"""TPU-first linear-algebra primitives for PMD.
+"""Linear-algebra primitives for PMD.
 
 Design notes (vs the reference implementation):
 
 - The reference calls ``jnp.linalg.svd`` on small matrices inside its hot
-  per-block kernel (reference decomposition.py:64-66, 301, 315, 319). On TPU,
-  dense SVD lowers to an iterative QDWH algorithm that is slow for the many
-  small matrices PMD produces. We instead use symmetric Gram / ``eigh``
-  formulations throughout — the same trick the reference itself uses for its
-  *final* reformat (reference decomposition.py:1063-1137) — which map to MXU
-  matmuls plus one small batched eigendecomposition.
+  per-block kernel (reference decomposition.py:64-66, 301, 315, 319). We
+  instead use symmetric Gram / ``eigh`` formulations throughout — the same
+  trick the reference itself uses for its *final* reformat (reference
+  decomposition.py:1063-1137) — which are matmuls plus one small batched
+  eigendecomposition.
 - Everything here is batch-first: a leading ``...`` batch axis is supported by
   every routine so the per-block pipeline runs as one fused program over the
   whole patch grid instead of a host loop (reference decomposition.py:790-838).
-- Matmuls request ``preferred_element_type=float32`` so the MXU accumulates in
-  f32 even if inputs are ever cast to bf16.
+- Matmuls request ``preferred_element_type=float32`` so products accumulate
+  in f32 even if inputs are ever cast to a narrower type.
 """
 
 from __future__ import annotations
@@ -26,16 +25,9 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 
-DEFAULT_OVERSAMPLES = 10
+from localmd_tpu.capabilities import resolve
 
-# NOTE (round 5): Pallas VMEM-resident batched solvers (Jacobi eigh,
-# Cholesky-inverse) were built, measured, and REJECTED — Mosaic allocates
-# every loop-body vector temporary on a 16 MB scoped-vmem stack (the
-# transpose-based Jacobi needs ~84 live temporaries/row and compiles only
-# at useless tile sizes), and the dots-only formulation that does compile
-# is MXU-latency-bound at 30 ms vs XLA's 9.4 ms for a (961, 30, 30) batch.
-# XLA's loop lowerings win at these shapes; see
-# scripts/ablate_jacobi_kernel.py and docs/ARCHITECTURE.md round-5 notes.
+DEFAULT_OVERSAMPLES = 10
 
 # Test hook: when set, truncated_random_svd draws its Gaussian sketch from
 # this callable (shape -> array) instead of the per-call PRNG key. Lets
@@ -69,10 +61,9 @@ def cholesky_qr2(y: Array) -> Array:
     """Orthonormalize the columns of ``y`` (..., d, k) via two rounds of
     CholeskyQR. Returns Q with the same column space as y.
 
-    On TPU, LAPACK-style QR (``jnp.linalg.qr``) is slow for tall-skinny and
-    batched inputs; CholeskyQR2 is two Gram matmuls + two small triangular
-    solves on the MXU, and its two passes recover the orthogonality that a
-    single CholeskyQR loses for ill-conditioned inputs (error ~ eps *
+    CholeskyQR2 is two Gram matmuls + two small triangular solves (no
+    Householder sweep over the tall axis), and its two passes recover the
+    orthogonality that a single CholeskyQR loses for ill-conditioned inputs (error ~ eps *
     cond(y)^2 -> eps after the second pass, fine for randomized sketches).
     A tiny ridge guards rank-deficient sketches (zero/duplicate columns).
     """
@@ -96,16 +87,16 @@ def cholesky_qr2(y: Array) -> Array:
 
 # --- batched small-matrix eigh (cyclic Jacobi) ------------------------------
 #
-# XLA's eigh on TPU is an iterative while-loop algorithm whose wall time
-# dominates the whole per-block kernel chain for PMD's many small Gram
-# matrices: measured 16 ms for a (256, 30, 30) batch / 60 ms for (1024, 30,
-# 30) on v5e, vs 3-10 ms for the fixed-sweep Jacobi below (which converges to
-# f32 machine precision in <= ~10 sweeps for k <= 64). Rotations are applied
-# as exact elementwise row/column updates (static permutation gathers + FMA
-# on the VPU) — a matmul-based application would run on the MXU in bf16 by
-# default and stall convergence at ~1e-2.
+# A fixed-sweep cyclic Jacobi for PMD's many small Gram matrices (converges
+# to f32 machine precision in <= ~10 sweeps for k <= 64). Rotations are
+# applied as exact elementwise row/column updates (static permutation
+# gathers + FMA), not as matmuls: a matmul at reduced default precision
+# would stall convergence at ~1e-2. Whether it or ``jnp.linalg.eigh`` runs
+# is the ``jacobi_eigh`` entry of localmd_tpu.capabilities.FAST_PATHS;
+# JACOBI_EIGH=True/False forces it.
 
 _JACOBI_MAX_DIM = 64
+JACOBI_EIGH = "auto"
 
 
 def _jacobi_tables(k: int):
@@ -149,8 +140,8 @@ def jacobi_eigh(sym: Array, sweeps: int = 10) -> Tuple[Array, Array]:
     """Batched cyclic-Jacobi eigendecomposition, eigenvalues DESCENDING.
 
     (..., k, k) symmetric -> ((..., k), (..., k, k)); ``a ~ V diag(vals) V^T``
-    with orthonormal V columns. Designed for small k (<= ~64) where it beats
-    XLA's eigh by 4-8x on TPU; converges quadratically (10 sweeps reach f32
+    with orthonormal V columns. Designed for small k (<= ~64); converges
+    quadratically (10 sweeps reach f32
     machine precision for k ~ 30 even with clustered spectra). Odd k is
     zero-padded internally; the padded dimension never mixes (its off-diagonal
     entries stay exactly zero, and zero entries skip rotation).
@@ -209,11 +200,11 @@ def eigh_descending(sym: Array) -> Tuple[Array, Array]:
     """Eigendecomposition of a symmetric PSD matrix, eigenvalues descending.
 
     Accepts a batch: (..., k, k) -> ((..., k), (..., k, k)). Small matrices
-    on non-CPU backends route to :func:`jacobi_eigh` (see note above); large
-    matrices and CPU use XLA/LAPACK eigh.
+    route to :func:`jacobi_eigh` where the backend's fast-path table (or
+    JACOBI_EIGH) selects it; everything else uses XLA's eigh.
     """
     k = sym.shape[-1]
-    if k <= _JACOBI_MAX_DIM and jax.default_backend() != "cpu":
+    if k <= _JACOBI_MAX_DIM and resolve(JACOBI_EIGH, "jacobi_eigh"):
         return jacobi_eigh(sym, 10 if k <= 32 else 12)
     vals, vecs = jnp.linalg.eigh(sym)
     vals = jnp.flip(vals, axis=-1)
@@ -226,15 +217,14 @@ def subspace_eigh(sym: Array, k_sketch: int) -> Tuple[Array, Array]:
     """Top-``k_sketch`` eigenpairs of a PSD (m, m) matrix with known rank
     bound ``rank(sym) <= k_sketch``, via randomized range capture.
 
-    XLA's full ``eigh`` on TPU is an iterative while-loop whose wall time
-    grows superlinearly with m (measured on v5e: 59 ms at m=1024, 694 ms at
-    m=4000). The factorized-SVD reformat knows an a-priori rank bound for its
-    Gram quadratic (the blockwise component budget), so one sketch pass
-    captures the whole range exactly up to f32 rounding: ``Y = sym @ Om``,
-    ``Q = choleskyQR2(Y)``, then the (k, k) compression ``Q^T sym Q`` is
-    decomposed and lifted back as ``V = Q W`` (34 ms for 4000 -> 480 on v5e,
-    a 20x win). The m - k_sketch discarded directions lie in the numerical
-    null space; callers already zero/drop eigenvalues at the f32 noise floor.
+    Full ``eigh`` cost grows superlinearly with m. The factorized-SVD
+    reformat knows an a-priori rank bound for its Gram quadratic (the
+    blockwise component budget), so one sketch pass captures the whole
+    range exactly up to f32 rounding: ``Y = sym @ Om``, ``Q = qr(Y)``, then
+    the (k, k) compression ``Q^T sym Q`` is decomposed and lifted back as
+    ``V = Q W``. The m - k_sketch discarded directions lie in the numerical
+    null space; callers already zero/drop eigenvalues at the f32 noise
+    floor. Not measured against a plain ``eigh`` on the H100.
 
     The sketch is seeded deterministically from the shape alone, so results
     are reproducible run-to-run and independent of pipeline RNG state.
@@ -244,18 +234,15 @@ def subspace_eigh(sym: Array, k_sketch: int) -> Tuple[Array, Array]:
     m = sym.shape[-1]
     key = jax.random.PRNGKey(m * 1000003 + k_sketch)
     om = jax.random.normal(key, (m, k_sketch), dtype=sym.dtype)
-    # All three sketch products run at HIGHEST (6-pass f32 on the MXU):
-    # one-pass bf16 leaves ~1e-2-relative noise whose random column space
+    # All three sketch products run at HIGHEST (full f32): a reduced-
+    # precision pass leaves ~1e-2-relative noise whose random column space
     # pulls Q off the true range, drowning every eigendirection below
-    # ~1e-3 * lambda_max (measured: the pipeline's kept rank collapsed
-    # 233 -> 31). 6-pass f32 resolves the tail to the same floor as full
-    # eigh, and the extra passes cost ~10 ms at (4000, 480).
+    # ~1e-3 * lambda_max (the pipeline's kept rank collapsed 233 -> 31).
     hi = jax.lax.Precision.HIGHEST
     # Householder QR, not choleskyQR2: the sketch Y is rank-deficient by
     # construction (rank(sym) < k_sketch), and the Cholesky ridge biases the
     # weak directions' norms at ~1e-3 — Householder stays orthonormal to f32
-    # regardless of rank and is fast at sketch width (within the measured
-    # 34 ms total at (4000, 480) on v5e).
+    # regardless of rank at sketch width.
     q, _ = jnp.linalg.qr(jnp.matmul(sym, om, precision=hi,
                                     preferred_element_type=jnp.float32))
     aq = jnp.matmul(sym, q, precision=hi, preferred_element_type=jnp.float32)

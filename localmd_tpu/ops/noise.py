@@ -41,9 +41,9 @@ def _hann_periodic(n: int, dtype) -> Array:
 def _band_dft_matrices(dtype, nperseg: int = NPERSEG):
     """Windowed real-DFT matrices for bins [_BAND_START, _BAND_END) only.
 
-    TPU has no native FFT (XLA emulates it slowly for big batches of short
-    transforms); we only need 64 of the rfft bins, so evaluate them as two
-    (nperseg, n_bins) matmuls on the MXU instead. The Hann window is folded
+    Only 64 of the rfft bins are needed, so they are evaluated as two
+    (nperseg, n_bins) matmuls instead of a full FFT (whether cuFFT plus a
+    band slice is faster on the H100 is not measured). The Hann window is folded
     into the matrices; constant detrend folds in as a rank-1 correction
     (F @ (w*(x - m)) = F_w @ x - m * (F_w @ 1)).
 
@@ -84,8 +84,9 @@ def welch_noise_estimate(traces: Array) -> Array:
 
     cos_m, sin_m, cos_1, sin_1 = _band_dft_matrices(dtype)
     m = jnp.mean(segs, axis=-1, keepdims=True)                    # detrend='constant'
-    # full f32 precision: sigma feeds the global standardization, where
-    # 1-pass bf16 MXU error would put a ~1e-3 floor under every parity bar
+    # full f32 precision: sigma feeds the global standardization, where a
+    # reduced-precision (bf16/TF32) product would put a ~1e-3 floor under
+    # every parity bar
     hi = jax.lax.Precision.HIGHEST
     re = jnp.matmul(segs, cos_m, preferred_element_type=jnp.float32,
                     precision=hi) - m * cos_1

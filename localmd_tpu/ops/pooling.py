@@ -25,8 +25,7 @@ def downsample_average_pooling(array: Array, n: int) -> Array:
     if d1 % n == 0 and d2 % n == 0:
         # Evenly-divisible FOV (the common case: 32x32 blocks, n=2): SAME
         # padding degenerates to full windows with count n*n everywhere, so a
-        # reshape+mean is exact and avoids reduce_window (measurably slower
-        # on TPU for the block-stage shapes).
+        # reshape+mean is exact and avoids reduce_window.
         lead = array.shape[:-3]
         pooled = array.reshape(lead + (d1 // n, n, d2 // n, n, t))
         return jnp.mean(pooled, axis=(-4, -2))

@@ -1,7 +1,7 @@
 """FOV tiling: overlapping block grid, pyramid blend weights, patch gather /
 overlap-add scatter, and explicit F/C-order flattening helpers.
 
-TPU-first rethink of the reference's host-side tiling
+Design vs the reference's host-side tiling
 (reference decomposition.py:695-853):
 
 - The block grid (50% overlap + tail blocks) is computed once on the host as
@@ -257,9 +257,8 @@ class BlockGrid:
         tail start (spacing irregular) forms its own singleton group. The 2-D
         cosets are the cross products (<= (k_c+1)^2 of them); within a coset,
         placing block windows into the FOV is a pure pad + transpose + reshape
-        — XLA's scatter-add serializes row updates (139 ms at 1024^2 / m=337
-        on v5e) while per-pixel gathers pay an 8-sublane read amplification;
-        the coset form moves only sequential full-bandwidth tiles.
+        — XLA's scatter-add serializes overlapping row updates, while the
+        coset form moves only whole sequential tiles.
 
         Returns a cached tuple of ``(block_ids (nc1*nc2,) np.int32,
         (nc1, nc2, st1, st2, a1, a2))`` — counts, within-coset strides and
@@ -361,10 +360,9 @@ def extract_patches(data: Array, starts: Array, b1: int, b2: int) -> Array:
     -> (n, b1, b2, T).
 
     Implemented as ONE pixel-row gather over the C-order-flattened FOV:
-    XLA lowers a vmapped 3-D ``dynamic_slice`` to a far slower gather
-    (measured 29.9 ms vs 16.6 ms for a 256-block 32^2 x 1020 chunk on v5e —
-    scripts/ablate_extract.py); a flat row-take moves the same bytes as
-    full-row copies.
+    XLA lowers a vmapped 3-D ``dynamic_slice`` to a general gather, while a
+    flat row-take moves the same bytes as full-row copies (not measured on
+    the H100).
     """
     d1, d2, t = data.shape
     n = starts.shape[0]

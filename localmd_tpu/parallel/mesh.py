@@ -13,7 +13,7 @@ north star):
   concat on host).
 
 The reference has no distributed code at all (single-device host loops,
-reference SURVEY §5); this module is the TPU-native replacement.
+reference SURVEY §5); this module is the device-mesh replacement.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ The pipeline's multi-host execution model (docs/ARCHITECTURE.md §multi-host):
   PMDArray are ordinary host-local objects.
 
 The reference has no distributed code at all (SURVEY.md §5); this module is
-the TPU-native equivalent of a multi-node input + compute fan-out.
+the JAX equivalent of a multi-node input + compute fan-out.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def validate_multihost_mesh(mesh: Optional[Mesh]) -> None:
     A 2-process run without a host-spanning mesh previously streamed the
     whole stats pass, ran the full block stage and factorized SVD, streamed
     its V stripe — and only THEN crashed in the global V assembly
-    (VERDICT r4 weak #5: hours wasted on a real pod). Raise before any
+    (hours wasted on a real multi-host run). Raise before any
     streaming instead.
     """
     n_proc = process_count()

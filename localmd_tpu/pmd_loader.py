@@ -1,6 +1,6 @@
 """Drop-in namespace mirroring ``localmd.pmd_loader``.
 
-Reference symbol surface (reference pmd_loader.py) over the TPU-native
+Reference symbol surface (reference pmd_loader.py) over the
 loader in :mod:`localmd_tpu.loader`. ``FrameDataloader`` is a lightweight
 map-style adapter with the reference's merged-tail chunk semantics
 (reference pmd_loader.py:71-108) — no torch dependency.
@@ -70,9 +70,10 @@ def v_projection_routine(
     """Reference pmd_loader.py:392-401: flatten a (d1, d2, t) chunk in
     ``order``, standardize, and regress onto the spatial basis.
 
-    The TPU pipeline itself uses the folded one-matmul variant
-    (:func:`localmd_tpu.loader._v_projection_kernel` / the Pallas
-    ``fused_v_projection``); this shim keeps reference call sites working.
+    The pipeline itself uses the folded one-matmul variant
+    (:func:`localmd_tpu.loader._v_projection_kernel`) or the packed cell
+    kernel (:func:`localmd_tpu.blocksparse.coset_vproj_chunk`); this shim
+    keeps reference call sites working.
     """
     data = jnp.reshape(data, (-1, data.shape[2]), order=order)
     centered = (data - mean_img_r) / std_img_r

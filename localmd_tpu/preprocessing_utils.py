@@ -1,7 +1,7 @@
 """Drop-in namespace mirroring ``localmd.preprocessing_utils``.
 
 Every symbol of the reference module (reference preprocessing_utils.py)
-under its reference name, implemented by the batched TPU kernels in
+under its reference name, implemented by the batched kernels in
 :mod:`localmd_tpu.ops.noise`. The ``*_vmap`` variants are the same batched
 functions — they operate over leading dims, which matches the reference's
 ``vmap(..., in_axes=0)`` trace convention.

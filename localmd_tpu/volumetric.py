@@ -1,7 +1,7 @@
 """Multi-plane (volumetric) PMD: decompose each z-plane independently.
 
-BASELINE.json config 5: "Multi-plane volumetric stack (per-plane PMD sharded
-across TPU mesh)". Each plane is an independent PMD problem; planes share
+BASELINE.json config 5: multi-plane volumetric stack, per-plane PMD sharded
+across a device mesh. Each plane is an independent PMD problem; planes share
 compiled programs (identical shapes), so after the first plane compiles,
 subsequent planes run at steady-state throughput.
 
@@ -109,8 +109,8 @@ def volumetric_decomposition(
 ) -> VolumetricPMD:
     """Run PMD per plane of a volumetric stack.
 
-    Two orthogonal scale-out axes (BASELINE.json config 5, "per-plane PMD
-    sharded across TPU mesh"):
+    Two orthogonal scale-out axes (BASELINE.json config 5, per-plane PMD
+    sharded across a device mesh):
 
     - ``mesh=`` (forwarded to each plane's pipeline): ONE plane at a time,
       its block grid and streaming V regression shard_map'd across the mesh

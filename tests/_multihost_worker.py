@@ -125,7 +125,7 @@ def run_pipeline(fx, out_path, pid):
     blocks = (int(fx["b1"]), int(fx["b2"]))
 
     # 1) fail FAST: a multi-host run without a host-spanning mesh must raise
-    #    at entry, before any streaming (VERDICT r4 weak #5)
+    #    at entry, before any streaming
     failed_fast = False
     try:
         localmd_decomposition(movie, blocks, **kw)

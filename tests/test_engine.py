@@ -311,7 +311,8 @@ class TestThresholdHeuristic:
         c = eng.threshold_heuristic((14, 14, 80), iters=32, key=jax.random.PRNGKey(8))
         assert calls["n"] == 2 and c != a
         # an ambient matmul-precision change must NOT hit the cache (the
-        # simulated rSVDs genuinely differ across precisions on TPU)
+        # simulated rSVDs genuinely differ across precisions on devices
+        # whose default f32 matmul is reduced-precision)
         with jax.default_matmul_precision("highest"):
             eng.threshold_heuristic((14, 14, 80), iters=32, key=jax.random.PRNGKey(7))
         assert calls["n"] == 3

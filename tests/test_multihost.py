@@ -130,7 +130,7 @@ def test_two_process_full_pipeline(tmp_path, rng):
     """localmd_decomposition end-to-end in TWO real jax.distributed
     processes: block stage sharded over the host-spanning mesh, stats and V
     distributed, thresholds/fsvd replicated — output matches a
-    single-process run on the same 8-device mesh (VERDICT r4 #2)."""
+    single-process run on the same 8-device mesh."""
     from localmd_tpu import localmd_decomposition
     from localmd_tpu.parallel.mesh import make_mesh
 

@@ -66,7 +66,7 @@ class TestVolumetric:
     def test_four_d_slicing_stays_on_device(self, monkeypatch):
         # pipeline-built planes hold live device factors: 4-D slicing must
         # route through each plane's on-device path and never materialize
-        # the scipy CSR export (VERDICT r4 #3; mirrors the 2-D spy test in
+        # the scipy CSR export (mirrors the 2-D spy test in
         # tests/test_pipeline.py)
         from localmd_tpu.pmd_array import PMDArray
 
@@ -142,8 +142,8 @@ class TestVolumetric:
 
 
 class TestVolumetricParallel:
-    """Scale-out paths for BASELINE.json config 5 ("per-plane PMD sharded
-    across TPU mesh"): mesh= block-sharding per plane, devices= plane-level
+    """Scale-out paths for BASELINE.json config 5 (per-plane PMD sharded
+    across a device mesh): mesh= block-sharding per plane, devices= plane-level
     round-robin across chips."""
 
     KW = dict(
