@@ -4,15 +4,11 @@
 Every optional code path of the pipeline that is numerically equivalent to a
 plainer one (but not bit-identical to it) is switched here:
 
-- ``coset_stage``: the gather-free one-program block stage
-  (``engine.window0_coset_stage``) instead of the chunked gather dispatch.
 - ``banded_gram``: the block-banded ``right^T (U^T U) right`` of the
   factorized SVD (``blocksparse._banded_gram_quad``) instead of the canvas
   form.
 - ``coset_vproj``: the packed per-cell V-regression chunk kernel
   (``blocksparse.coset_vproj_chunk``) instead of the folded dense projector.
-- ``jacobi_eigh``: the fixed-sweep batched Jacobi eigensolver for k <= 64
-  (``ops.linalg.jacobi_eigh``) instead of ``jnp.linalg.eigh``.
 - ``aot_warm``: background compilation of later stages' programs while the
   statistics pass streams (``localmd_tpu.aot``).
 
@@ -21,10 +17,9 @@ parity tests) never depend on a fast path. The ``gpu`` row is chosen from
 end-to-end timings on an H100 (see PERF.md). A platform without a row is an
 error, not a default: a new backend must be measured before it runs.
 
-Module flags (``engine.COSET_STAGE``, ``blocksparse.BANDED_GRAM``,
-``blocksparse.COSET_VPROJ``, ``ops.linalg.JACOBI_EIGH``) and the pipeline's
-``aot_warm=`` argument take ``True``/``False`` to force a path and
-``"auto"`` to read this table.
+Module flags (``blocksparse.BANDED_GRAM``, ``blocksparse.COSET_VPROJ``)
+and the pipeline's ``aot_warm=`` argument take ``True``/``False`` to force
+a path and ``"auto"`` to read this table.
 """
 
 from __future__ import annotations
@@ -33,22 +28,18 @@ import jax
 
 FAST_PATHS = {
     "cpu": {
-        "coset_stage": False,
         "banded_gram": False,
         "coset_vproj": False,
-        "jacobi_eigh": False,
         "aot_warm": False,
     },
-    # H100, 512x512x2048 benchmark movie, warm end-to-end medians with one
-    # entry flipped at a time (PERF.md, "Fast-path table"): the chunked
-    # gather block stage beats the coset stage, cuSOLVER's batched eigh
-    # beats Jacobi, the banded Gram and the cell V-projection each save a
-    # few ms, and background warm-compilation shortens cold runs.
+    # H100, 512x512x2048 benchmark movie, 20 alternating on/off pairs of
+    # warm end-to-end runs per entry (PERF.md, "Fast-path table"): the
+    # banded Gram and the cell V-projection each save about 3 ms, more
+    # than the row's interquartile range, in 19 and 20 of 20 pairs; and
+    # background warm-compilation shortens cold runs.
     "gpu": {
-        "coset_stage": False,
         "banded_gram": True,
         "coset_vproj": True,
-        "jacobi_eigh": False,
         "aot_warm": True,
     },
 }

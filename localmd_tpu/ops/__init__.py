@@ -5,7 +5,6 @@ from localmd_tpu.ops.linalg import (
     svd_gram_right,
     projected_svd,
     eigh_descending,
-    jacobi_eigh,
 )
 from localmd_tpu.ops.noise import (
     welch_noise_estimate,
@@ -34,7 +33,6 @@ __all__ = [
     "svd_gram_right",
     "projected_svd",
     "eigh_descending",
-    "jacobi_eigh",
     "welch_noise_estimate",
     "get_mean_and_noise",
     "spatial_roughness_stat",

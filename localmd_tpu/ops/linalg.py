@@ -25,8 +25,6 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 
-from localmd_tpu.capabilities import resolve
-
 DEFAULT_OVERSAMPLES = 10
 
 # Test hook: when set, truncated_random_svd draws its Gaussian sketch from
@@ -85,127 +83,11 @@ def cholesky_qr2(y: Array) -> Array:
     return _one_pass(_one_pass(y))
 
 
-# --- batched small-matrix eigh (cyclic Jacobi) ------------------------------
-#
-# A fixed-sweep cyclic Jacobi for PMD's many small Gram matrices (converges
-# to f32 machine precision in <= ~10 sweeps for k <= 64). Rotations are
-# applied as exact elementwise row/column updates (static permutation
-# gathers + FMA), not as matmuls: a matmul at reduced default precision
-# would stall convergence at ~1e-2. Whether it or ``jnp.linalg.eigh`` runs
-# is the ``jacobi_eigh`` entry of localmd_tpu.capabilities.FAST_PATHS;
-# JACOBI_EIGH=True/False forces it.
-
-_JACOBI_MAX_DIM = 64
-JACOBI_EIGH = "auto"
-
-
-def _jacobi_tables(k: int):
-    """Static per-step tables for the round-robin (circle method) schedule.
-
-    Returns (sched (k-1, k/2, 2), perm (k-1, k), pair_of (k-1, k),
-    sign (k-1, k)): every unordered index pair is rotated exactly once per
-    sweep, with the k/2 pairs of one step disjoint so they apply as a single
-    vectorized update.
-    """
-    import numpy as _np
-
-    arr = list(range(k))
-    steps = []
-    for _ in range(k - 1):
-        steps.append(
-            [
-                (min(arr[i], arr[k - 1 - i]), max(arr[i], arr[k - 1 - i]))
-                for i in range(k // 2)
-            ]
-        )
-        arr = [arr[0], arr[-1]] + arr[1:-1]
-    sched = _np.array(steps, dtype=_np.int32)
-    n_steps = sched.shape[0]
-    perm = _np.empty((n_steps, k), _np.int32)
-    pair_of = _np.empty((n_steps, k), _np.int32)
-    sign = _np.empty((n_steps, k), _np.float32)
-    for t in range(n_steps):
-        for slot, (p, q) in enumerate(sched[t]):
-            perm[t, p] = q
-            perm[t, q] = p
-            pair_of[t, p] = slot
-            pair_of[t, q] = slot
-            sign[t, p] = -1.0  # row p mixes in -s * row q
-            sign[t, q] = 1.0   # row q mixes in +s * row p
-    return sched, perm, pair_of, sign
-
-
-@partial(jax.jit, static_argnums=(1,))
-def jacobi_eigh(sym: Array, sweeps: int = 10) -> Tuple[Array, Array]:
-    """Batched cyclic-Jacobi eigendecomposition, eigenvalues DESCENDING.
-
-    (..., k, k) symmetric -> ((..., k), (..., k, k)); ``a ~ V diag(vals) V^T``
-    with orthonormal V columns. Designed for small k (<= ~64); converges
-    quadratically (10 sweeps reach f32
-    machine precision for k ~ 30 even with clustered spectra). Odd k is
-    zero-padded internally; the padded dimension never mixes (its off-diagonal
-    entries stay exactly zero, and zero entries skip rotation).
-    """
-    k0 = sym.shape[-1]
-    k = k0 + (k0 % 2)
-    if k != k0:
-        sym = jnp.pad(sym, [(0, 0)] * (sym.ndim - 2) + [(0, 1), (0, 1)])
-    sched, perm, pair_of, sign = _jacobi_tables(k)
-    sched_d = jnp.asarray(sched)
-    perm_d = jnp.asarray(perm)
-    pair_d = jnp.asarray(pair_of)
-    sign_d = jnp.asarray(sign)
-    n_steps = sched.shape[0]
-
-    a = sym
-    v = jnp.zeros_like(sym) + jnp.eye(k, dtype=sym.dtype)
-
-    def step(carry, idx):
-        a, v = carry
-        pq = sched_d[idx]                               # (k/2, 2)
-        pi, qi = pq[:, 0], pq[:, 1]
-        diag = jnp.diagonal(a, axis1=-2, axis2=-1)      # (..., k)
-        app = diag[..., pi]
-        aqq = diag[..., qi]
-        apq = a[..., pi, qi]
-        theta = 0.5 * jnp.arctan2(2.0 * apq, aqq - app)
-        # exact zeros skip rotation: keeps padded dims inert and avoids
-        # pointless diagonal-ordering swaps (final argsort orders anyway)
-        theta = jnp.where(apq == 0.0, 0.0, theta)
-        c_pair = jnp.cos(theta)
-        s_pair = jnp.sin(theta)
-        pr = perm_d[idx]
-        cf = c_pair[..., pair_d[idx]]                   # (..., k)
-        sf = s_pair[..., pair_d[idx]] * sign_d[idx]
-        # rows: (J^T A)[i, :] = c_i A[i, :] + sf_i A[partner(i), :]
-        a = cf[..., :, None] * a + sf[..., :, None] * a[..., pr, :]
-        # cols: (B J)[:, i] = c_i B[:, i] + sf_i B[:, partner(i)]
-        a = cf[..., None, :] * a + sf[..., None, :] * a[..., :, pr]
-        v = cf[..., None, :] * v + sf[..., None, :] * v[..., :, pr]
-        return (a, v), None
-
-    idxs = jnp.tile(jnp.arange(n_steps), sweeps)
-    (a, v), _ = jax.lax.scan(step, (a, v), idxs)
-    vals = jnp.diagonal(a, axis1=-2, axis2=-1)
-    if k != k0:
-        vals = vals[..., :k0]
-        v = v[..., :k0, :k0]
-    order = jnp.argsort(-vals, axis=-1)
-    vals = jnp.take_along_axis(vals, order, axis=-1)
-    v = jnp.take_along_axis(v, order[..., None, :], axis=-1)
-    return vals, v
-
-
 def eigh_descending(sym: Array) -> Tuple[Array, Array]:
     """Eigendecomposition of a symmetric PSD matrix, eigenvalues descending.
 
-    Accepts a batch: (..., k, k) -> ((..., k), (..., k, k)). Small matrices
-    route to :func:`jacobi_eigh` where the backend's fast-path table (or
-    JACOBI_EIGH) selects it; everything else uses XLA's eigh.
+    Accepts a batch: (..., k, k) -> ((..., k), (..., k, k)).
     """
-    k = sym.shape[-1]
-    if k <= _JACOBI_MAX_DIM and resolve(JACOBI_EIGH, "jacobi_eigh"):
-        return jacobi_eigh(sym, 10 if k <= 32 else 12)
     vals, vecs = jnp.linalg.eigh(sym)
     vals = jnp.flip(vals, axis=-1)
     vecs = jnp.flip(vecs, axis=-1)

@@ -14,6 +14,11 @@ Three SPMD phases (see mesh.py for the parallelism map):
    Z = U @ right, one ``psum`` combines the overlap seams, then the (m, m)
    product is computed on the local m-shard. This is the only place the
    block-overlap structure induces cross-chip traffic.
+
+Each phase is one ``jax.jit`` program keyed on its mesh and static
+arguments, so a repeated call with the same shapes reuses the compiled
+program; an eagerly applied ``shard_map`` would retrace and recompile its
+body on every call.
 """
 
 from __future__ import annotations
@@ -35,6 +40,14 @@ def _mm(a, b):
     return jnp.matmul(a, b, preferred_element_type=jnp.float32)
 
 
+@partial(
+    jax.jit,
+    static_argnames=(
+        "mesh", "b1", "b2", "max_rank", "temporal_avg_factor",
+        "spatial_avg_factor", "max_consecutive_failures", "spatial_denoiser",
+        "temporal_denoiser", "t_used",
+    ),
+)
 def sharded_window0_chunk_step(
     mesh: Mesh,
     data: Array,
@@ -86,6 +99,14 @@ def sharded_window0_chunk_step(
     )
 
 
+@partial(
+    jax.jit,
+    static_argnames=(
+        "mesh", "n_windows", "window_length", "max_rank",
+        "temporal_avg_factor", "spatial_avg_factor",
+        "max_consecutive_failures", "spatial_denoiser", "temporal_denoiser",
+    ),
+)
 def sharded_windowed_pmd(
     mesh: Mesh,
     patches: Array,
@@ -137,6 +158,7 @@ def sharded_windowed_pmd(
     return f(patches, keys_all, spatial_threshold, temporal_threshold)
 
 
+@partial(jax.jit, static_argnames=("mesh", "local_fn"))
 def sharded_block_decomposition(
     mesh: Mesh,
     local_fn: Callable[[Array, Array], Tuple[Array, Array, Array]],
@@ -161,6 +183,7 @@ def sharded_block_decomposition(
     return f(patches, keys)
 
 
+@partial(jax.jit, static_argnames=("mesh",))
 def sharded_v_projection_chunk(
     mesh: Mesh,
     panels: Array,
@@ -196,6 +219,7 @@ def sharded_v_projection_chunk(
     return f(chunk_flat, panels, rows, dense_basis, p_matrix, mean_flat, std_flat)
 
 
+@partial(jax.jit, static_argnames=("mesh", "n_pixels", "col_chunk"))
 def sharded_gram_quadratic(
     mesh: Mesh,
     panels: Array,

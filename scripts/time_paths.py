@@ -9,8 +9,12 @@ Three measurements, one JSON document (printed, and written to ``--out``):
    large copy and a large bf16 matmul measured in the same process.
 2. ``paths``: warm end-to-end time of ``localmd_decomposition`` on the
    512x512x2048 benchmark movie (``bench.py`` arguments, ``aot_warm=False``)
-   with the candidate ``gpu`` row of ``localmd_tpu.capabilities`` and with
-   each of its four path flags flipped in turn, then the row again.
+   for each path flag of the ``gpu`` row of ``localmd_tpu.capabilities``:
+   ``--pairs`` alternating pairs of one warm run with the row's setting and
+   one with the flag flipped (the order inside a pair alternates too), after
+   one priming run of each. Reports each setting's median and interquartile
+   range and the median paired difference, and the time of
+   ``reconstruct_frames`` over 512 frames with the row's setting.
 3. ``aot``: cold (persistent compile cache off) and warm time with
    ``aot_warm`` False and True, each in a fresh child process that holds
    the card alone (the parent has not touched the card yet).
@@ -107,19 +111,27 @@ def kernels():
     return out
 
 
-def _pipeline_times(movie, n_warm=5, **kw):
+def _run(movie, **kw):
     import localmd_tpu
 
-    def run():
-        t0 = time.perf_counter()
-        pmd = localmd_tpu.localmd_decomposition(movie, (32, 32), **BENCH_KW, **kw)
-        pmd.block_until_ready()
-        return pmd, time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pmd = localmd_tpu.localmd_decomposition(movie, (32, 32), **BENCH_KW, **kw)
+    pmd.block_until_ready()
+    return pmd, time.perf_counter() - t0
 
-    pmd, first = run()
+
+def _quartiles(xs):
+    import numpy as np
+
+    q1, med, q3 = np.percentile(xs, [25, 50, 75])
+    return {"median_s": float(med), "q1_s": float(q1), "q3_s": float(q3)}
+
+
+def _pipeline_times(movie, n_warm=5, **kw):
+    pmd, first = _run(movie, **kw)
     warms = []
     for _ in range(n_warm):
-        pmd, w = run()
+        pmd, w = _run(movie, **kw)
         warms.append(w)
     warms.sort()
     return {
@@ -130,56 +142,65 @@ def _pipeline_times(movie, n_warm=5, **kw):
 
 
 FLAGS = {
-    "coset_stage": ("localmd_tpu.engine", "COSET_STAGE"),
     "banded_gram": ("localmd_tpu.blocksparse", "BANDED_GRAM"),
     "coset_vproj": ("localmd_tpu.blocksparse", "COSET_VPROJ"),
-    "jacobi_eigh": ("localmd_tpu.ops.linalg", "JACOBI_EIGH"),
 }
 
 
-def _set_flags(values):
+def _set_flag(name, val):
     import importlib
 
-    import jax
-
-    for name, val in values.items():
-        mod, attr = FLAGS[name]
-        setattr(importlib.import_module(mod), attr, val)
-    jax.clear_caches()  # jacobi_eigh is read while tracing
+    mod, attr = FLAGS[name]
+    setattr(importlib.import_module(mod), attr, val)
 
 
-def paths():
+def paths(pairs: int):
     import numpy as np
 
     from localmd_tpu.capabilities import FAST_PATHS
     from localmd_tpu.sim import two_photon_movie
 
-    row = {k: FAST_PATHS["gpu"][k] for k in FLAGS}
     t, d1, d2 = MOVIE
     movie = two_photon_movie(d1, d2, t, seed=0)
     frames = np.arange(0, t, t // 64)
-    configs = [("row", dict(row))]
-    for name in FLAGS:
-        configs.append((f"flip:{name}", {**row, name: not row[name]}))
-    configs.append(("row_again", dict(row)))
     out = []
-    ref = None
-    for label, vals in configs:
-        _set_flags(vals)
-        res, pmd = _pipeline_times(movie, aot_warm=False)
-        rec = np.asarray(pmd.reconstruct_frames(frames), np.float64) - 100.0
-        if ref is None:
-            ref = rec
-            res["reconstruct_512_frames"] = _timed(
-                lambda: pmd.reconstruct_frames(np.arange(512)), reps=5
-            )
-        res["rel_diff_vs_row"] = float(
-            np.linalg.norm(rec - ref) / np.linalg.norm(ref)
-        )
-        out.append({"config": label, "flags": vals, **res})
-        print(json.dumps(out[-1]), flush=True)
-    _set_flags({k: "auto" for k in FLAGS})
-    return out
+    for name in FLAGS:
+        row_val = FAST_PATHS["gpu"][name]
+        times = {row_val: [], not row_val: []}
+        recs, marks = {}, {}
+        for val in (row_val, not row_val):       # priming: compile both
+            _set_flag(name, val)
+            pmd, _ = _run(movie, aot_warm=False)
+            recs[val] = np.asarray(pmd.reconstruct_frames(frames), np.float64)
+            if val == row_val and not out:
+                recon = _timed(lambda: pmd.reconstruct_frames(np.arange(512)))
+        for i in range(pairs):
+            order = (row_val, not row_val) if i % 2 == 0 else (not row_val, row_val)
+            for val in order:
+                _set_flag(name, val)
+                pmd, w = _run(movie, aot_warm=False)
+                times[val].append(w)
+                marks.setdefault(val, []).append(pmd.pipeline_timings)
+        _set_flag(name, "auto")
+        diffs = np.asarray(times[not row_val]) - np.asarray(times[row_val])
+        ref = recs[row_val] - 100.0
+        rec = {
+            "flag": name, "row_value": row_val, "pairs": pairs,
+            "row": _quartiles(times[row_val]),
+            "flipped": _quartiles(times[not row_val]),
+            "median_diff_flipped_minus_row_s": float(np.median(diffs)),
+            "pairs_row_faster": int(np.sum(diffs > 0)),
+            "row_s": times[row_val], "flipped_s": times[not row_val],
+            "row_stage_marks_s": marks[row_val][-1],
+            "flipped_stage_marks_s": marks[not row_val][-1],
+            "rel_diff_flipped_vs_row": float(
+                np.linalg.norm(recs[not row_val] - 100.0 - ref)
+                / np.linalg.norm(ref)
+            ),
+        }
+        out.append(rec)
+        print(json.dumps(rec), flush=True)
+    return {"flags": out, "reconstruct_512_frames_row": recon}
 
 
 def aot_child(aot: bool):
@@ -203,6 +224,8 @@ def main():
     ap.add_argument("--skip", default="", help="comma list: kernels,paths,aot")
     ap.add_argument("--aot-runs", default="false,true,false,true",
                     help="aot_warm setting of each cold child, in order")
+    ap.add_argument("--pairs", type=int, default=20,
+                    help="alternating on/off pairs per path flag")
     args = ap.parse_args()
     if args.aot_child is not None:
         aot_child(args.aot_child == "true")
@@ -221,9 +244,12 @@ def main():
             print(json.dumps(doc["aot"][-1]), flush=True)
     import jax
 
+    from localmd_tpu.utils.compile_cache import enable_compile_cache
+
     dev = jax.devices()[0]
     if dev.platform != "gpu":
         raise SystemExit(f"time_paths.py needs a GPU, found {dev.platform!r}")
+    enable_compile_cache()
     doc["device"] = {"platform": dev.platform, "kind": dev.device_kind,
                      "count": len(jax.devices())}
     doc["nvidia_smi"] = subprocess.run(
@@ -234,7 +260,7 @@ def main():
         doc["kernels"] = kernels()
         print(json.dumps(doc["kernels"]), flush=True)
     if "paths" not in skip:
-        doc["paths"] = paths()
+        doc["paths"] = paths(args.pairs)
     text = json.dumps(doc, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

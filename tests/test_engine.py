@@ -373,122 +373,3 @@ class TestFusedSteps:
             jnp.asarray(blocks), jax.random.PRNGKey(9), 40, 2, 1e9, 1e9, 1, 4, 2,
         )
         assert (np.asarray(res.counts) == 2).all()
-
-
-class TestCosetStage:
-    """Gather-free coset-structured window-0 stage (engine.window0_coset_stage):
-    per-block results must match the chunked gather path up to f32
-    association and sign (reconstruction-level comparison)."""
-
-    def _both(self, rng, d1, d2, b, t, max_rank=5, tavg=4, savg=2):
-        from localmd_tpu.engine import (
-            coset_stage_plan,
-            window0_chunk_step,
-            window0_coset_stage,
-        )
-        from localmd_tpu.ops.tiling import block_grid
-
-        data = jnp.asarray(rng.standard_normal((d1, d2, t)).astype(np.float32))
-        plan = coset_stage_plan(d1, d2, b, b)
-        assert plan is not None
-        meta, ids, rem = plan
-        grid = block_grid(d1, d2, (b, b))
-        keys = jax.random.split(jax.random.PRNGKey(0), grid.n_blocks)
-        sthr = jnp.float32(1e9)
-        tthr = jnp.float32(1e9)
-        acc_c, cnt_c, v_c = window0_coset_stage(
-            data, keys[jnp.asarray(ids)], meta, b, b, max_rank, tavg, savg,
-            sthr, tthr, 1, t,
-        )
-        acc_r, cnt_r, v_r = window0_chunk_step(
-            data, jnp.asarray(grid.starts[ids]), keys[jnp.asarray(ids)],
-            b, b, max_rank, tavg, savg, sthr, tthr, 1, t_used=t,
-        )
-        return plan, grid, (acc_c, cnt_c, v_c), (acc_r, cnt_r, v_r)
-
-    def test_plan_covers_grid(self):
-        from localmd_tpu.engine import coset_stage_plan
-
-        # power-of-two FOV: 4 cosets cover everything, no remainder
-        meta, ids, rem = coset_stage_plan(64, 48, 16, 16)
-        assert rem.size == 0
-        assert sorted(ids) == list(range(len(ids)))
-        counts = {(m[0], m[1]): m[2] * m[3] for m in meta}
-        assert sum(counts.values()) == len(ids)
-        # non-divisible FOV: tail-snapped blocks land in the remainder
-        meta2, ids2, rem2 = coset_stage_plan(70, 64, 16, 16)
-        assert rem2.size > 0
-        assert sorted(np.concatenate([ids2, rem2])) == list(
-            range(len(ids2) + len(rem2))
-        )
-        # odd block sizes have no coset structure
-        assert coset_stage_plan(60, 60, 15, 15) is None
-
-    def test_matches_chunked_path(self, rng):
-        _, _, (acc_c, cnt_c, v_c), (acc_r, cnt_r, v_r) = self._both(
-            rng, 64, 48, 16, 200
-        )
-        np.testing.assert_array_equal(np.asarray(cnt_c), np.asarray(cnt_r))
-        a_c, a_r = np.asarray(acc_c), np.asarray(acc_r)
-        vv_c, vv_r = np.asarray(v_c), np.asarray(v_r)
-        for blk in range(a_c.shape[0]):
-            # reconstruction is the sign/rotation-free invariant
-            rec_c = a_c[blk] @ vv_c[blk]
-            rec_r = a_r[blk] @ vv_r[blk]
-            denom = max(np.linalg.norm(rec_r), 1e-6)
-            assert np.linalg.norm(rec_c - rec_r) / denom < 1e-4, blk
-
-    @pytest.mark.slow
-    def test_pipeline_coset_path_matches_default(self, rng):
-        # force the coset dispatch on CPU and compare the FULL pipeline
-        # output against the default (chunked) path
-        import localmd_tpu
-        from localmd_tpu import engine as eng
-
-        t, d1, d2 = 240, 40, 40
-        low = (rng.random((d1 * d2, 4)) @ rng.random((4, t))).T
-        movie = (
-            low.reshape(t, d1, d2) + rng.standard_normal((t, d1, d2))
-        ).astype(np.float32)
-        kw = dict(
-            frame_range=240, max_components=4, background_rank=1,
-            temporal_avg_factor=4, sim_iters=15, seed=0,
-        )
-        ref = localmd_tpu.localmd_decomposition(movie, (16, 16), **kw)
-        rec_ref = ref[:, :, :]
-        old = eng.COSET_STAGE
-        eng.COSET_STAGE = True
-        try:
-            out = localmd_tpu.localmd_decomposition(movie, (16, 16), **kw)
-        finally:
-            eng.COSET_STAGE = old
-        assert out.rank == ref.rank
-        rec = out[:, :, :]
-        scale = float(np.abs(rec_ref).max()) or 1.0
-        np.testing.assert_allclose(rec / scale, rec_ref / scale, atol=5e-4)
-
-    @pytest.mark.slow
-    def test_pipeline_coset_path_nondivisible_fov(self, rng):
-        # FOV with tail-snapped blocks: remainder blocks go through the
-        # gather path and must land in the right global positions
-        import localmd_tpu
-        from localmd_tpu import engine as eng
-
-        t, d1, d2 = 240, 44, 38
-        movie = (rng.standard_normal((t, d1, d2)) + 2).astype(np.float32)
-        kw = dict(
-            frame_range=240, max_components=3, background_rank=1,
-            temporal_avg_factor=4, sim_iters=15, seed=0,
-        )
-        ref = localmd_tpu.localmd_decomposition(movie, (16, 16), **kw)
-        rec_ref = ref[:, :, :]
-        old = eng.COSET_STAGE
-        eng.COSET_STAGE = True
-        try:
-            out = localmd_tpu.localmd_decomposition(movie, (16, 16), **kw)
-        finally:
-            eng.COSET_STAGE = old
-        assert out.rank == ref.rank
-        rec = out[:, :, :]
-        scale = float(np.abs(rec_ref).max()) or 1.0
-        np.testing.assert_allclose(rec / scale, rec_ref / scale, atol=5e-4)

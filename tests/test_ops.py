@@ -6,7 +6,7 @@ import scipy.signal
 
 from localmd_tpu.ops.linalg import (
     batched_truncated_random_svd,
-    jacobi_eigh,
+    eigh_descending,
     projected_svd,
     subspace_eigh,
     svd_gram_left,
@@ -55,59 +55,54 @@ class TestLinalg:
             np.asarray(u) @ np.diag(np.asarray(s)) @ np.asarray(vt), a, atol=1e-3
         )
 
-    def _check_eigh(self, a, atol=5e-5):
-        """a: (..., k, k) symmetric numpy. Checks descending order, vector
-        orthonormality, and reconstruction against the input."""
-        vals, vecs = jacobi_eigh(jnp.asarray(a))
+    @staticmethod
+    def _eigh_case(rng, case):
+        """(..., k, k) symmetric test matrices, float32."""
+        if case == "psd_batch":
+            m = rng.standard_normal((7, 30, 90)).astype(np.float32)
+            return np.einsum("nik,njk->nij", m, m)
+        if case == "decaying_spectrum":
+            # strongly decaying singular values: the ill-conditioned case
+            # the per-block Gram matrices produce
+            m = rng.standard_normal((4, 20, 60)).astype(np.float32)
+            m *= np.exp(-np.arange(20) * 0.8)[None, :, None].astype(np.float32)
+            return np.einsum("nik,njk->nij", m, m)
+        if case == "odd_dim_unbatched":
+            m = rng.standard_normal((13, 40)).astype(np.float32)
+            return m @ m.T
+        if case == "indefinite_degenerate":
+            # symmetric but indefinite, with exactly repeated eigenvalues
+            q, _ = np.linalg.qr(rng.standard_normal((12, 12)))
+            vals = np.array([5.0, 3.0, 3.0, 1.0, 0.5, 0.0, 0.0, -0.5, -1.0,
+                             -2.0, -2.0, -4.0])
+            a = (q * vals[None, :]) @ q.T
+            return ((a + a.T) / 2).astype(np.float32)
+        assert case == "zero"
+        return np.zeros((2, 6, 6), np.float32)
+
+    @pytest.mark.parametrize(
+        "case",
+        ["psd_batch", "decaying_spectrum", "odd_dim_unbatched",
+         "indefinite_degenerate", "zero"],
+    )
+    def test_eigh_descending_matches_numpy(self, rng, case):
+        """Descending eigenvalues equal to float64 LAPACK's, orthonormal
+        vectors, and V diag(vals) V^T reconstructs the input."""
+        a = self._eigh_case(rng, case)
+        vals, vecs = eigh_descending(jnp.asarray(a))
         vals, vecs = np.asarray(vals), np.asarray(vecs)
         k = a.shape[-1]
-        scale = max(np.abs(a).max(), 1e-12)
+        scale = max(float(np.abs(a).max()), 1e-12)
+        assert vals.shape == a.shape[:-1] and vecs.shape == a.shape
         assert (np.diff(vals, axis=-1) <= 1e-5 * scale).all()
-        gram = np.einsum("...ij,...ik->...jk", vecs, vecs)
-        np.testing.assert_allclose(gram, np.broadcast_to(np.eye(k), gram.shape), atol=2e-5)
-        recon = np.einsum("...ij,...j,...kj->...ik", vecs, vals, vecs)
-        np.testing.assert_allclose(recon, a, atol=atol * scale)
         ref = np.linalg.eigvalsh(a.astype(np.float64))[..., ::-1]
-        np.testing.assert_allclose(vals, ref, rtol=1e-4, atol=atol * scale)
-
-    def test_jacobi_eigh_random_psd_batch(self, rng):
-        m = rng.standard_normal((7, 30, 90)).astype(np.float32)
-        self._check_eigh(np.einsum("nik,njk->nij", m, m))
-
-    def test_jacobi_eigh_decaying_spectrum(self, rng):
-        # strongly decaying singular values: the ill-conditioned case the
-        # per-block Gram matrices actually produce
-        m = rng.standard_normal((4, 20, 60)).astype(np.float32)
-        m *= np.exp(-np.arange(20) * 0.8)[None, :, None].astype(np.float32)
-        self._check_eigh(np.einsum("nik,njk->nij", m, m))
-
-    def test_jacobi_eigh_odd_dim_and_unbatched(self, rng):
-        m = rng.standard_normal((13, 40)).astype(np.float32)
-        self._check_eigh(m @ m.T)
-
-    def test_jacobi_eigh_indefinite_and_degenerate(self, rng):
-        # symmetric but indefinite, with an exactly repeated eigenvalue
-        q, _ = np.linalg.qr(rng.standard_normal((12, 12)))
-        vals = np.array([5.0, 3.0, 3.0, 1.0, 0.5, 0.0, 0.0, -0.5, -1.0, -2.0, -2.0, -4.0])
-        a = (q * vals[None, :]) @ q.T
-        a = ((a + a.T) / 2).astype(np.float32)
-        got_vals, got_vecs = jacobi_eigh(jnp.asarray(a))
-        np.testing.assert_allclose(np.asarray(got_vals), np.sort(vals)[::-1], atol=1e-5)
-        recon = np.asarray(got_vecs) @ np.diag(np.asarray(got_vals)) @ np.asarray(got_vecs).T
-        np.testing.assert_allclose(recon, a, atol=5e-5)
-
-    def test_jacobi_eigh_zero_matrix(self):
-        vals, vecs = jacobi_eigh(jnp.zeros((2, 6, 6)))
-        np.testing.assert_array_equal(np.asarray(vals), 0.0)
-        gram = np.einsum("nij,nik->njk", np.asarray(vecs), np.asarray(vecs))
-        np.testing.assert_allclose(gram, np.broadcast_to(np.eye(6), (2, 6, 6)), atol=1e-6)
-
-    def test_jacobi_eigh_under_vmap(self, rng):
-        m = rng.standard_normal((5, 16, 50)).astype(np.float32)
-        a = np.einsum("nik,njk->nij", m, m)
-        direct = jacobi_eigh(jnp.asarray(a))
-        vmapped = jax.vmap(lambda x: jacobi_eigh(x))(jnp.asarray(a))
-        np.testing.assert_allclose(np.asarray(direct[0]), np.asarray(vmapped[0]), atol=1e-5)
+        np.testing.assert_allclose(vals, ref, rtol=1e-4, atol=5e-5 * scale)
+        gram = np.einsum("...ij,...ik->...jk", vecs, vecs)
+        np.testing.assert_allclose(
+            gram, np.broadcast_to(np.eye(k), gram.shape), atol=2e-5
+        )
+        recon = np.einsum("...ij,...j,...kj->...ik", vecs, vals, vecs)
+        np.testing.assert_allclose(recon, a, atol=5e-5 * scale)
 
     @pytest.mark.parametrize("rank,k_sketch", [(40, 72), (100, 132)])
     def test_subspace_eigh_matches_full_eigh(self, rng, rank, k_sketch):

@@ -135,15 +135,15 @@ def test_cpu_row_keeps_every_plain_path():
 
     assert jax.default_backend() == "cpu"
     assert capabilities.FAST_PATHS["cpu"] == {
-        "coset_stage": False, "banded_gram": False, "coset_vproj": False,
-        "jacobi_eigh": False, "aot_warm": False,
+        "banded_gram": False, "coset_vproj": False, "aot_warm": False,
     }
     assert set(capabilities.FAST_PATHS) == {"cpu", "gpu"}
+    assert set(capabilities.FAST_PATHS["gpu"]) == set(capabilities.FAST_PATHS["cpu"])
     assert not _banded_gram_enabled() and not _coset_vproj_enabled()
-    assert capabilities.resolve(True, "coset_stage") is True
+    assert capabilities.resolve(True, "banded_gram") is True
     assert capabilities.resolve(False, "aot_warm") is False
     with pytest.raises(ValueError):
-        capabilities.resolve("yes", "coset_stage")
+        capabilities.resolve("yes", "banded_gram")
 
 
 def test_unknown_platform_is_an_error(monkeypatch):
@@ -151,24 +151,24 @@ def test_unknown_platform_is_an_error(monkeypatch):
 
     monkeypatch.setattr(capabilities.jax, "default_backend", lambda: "metal")
     with pytest.raises(RuntimeError, match="no fast-path table row"):
-        capabilities.fast_path("coset_stage")
+        capabilities.fast_path("banded_gram")
     with pytest.raises(RuntimeError):
-        capabilities.resolve("auto", "banded_gram")
+        capabilities.resolve("auto", "coset_vproj")
     # a forced flag never consults the table
     assert capabilities.resolve(True, "banded_gram") is True
 
 
 def test_gpu_row_reads_through_module_flags(monkeypatch):
-    from localmd_tpu import capabilities, engine
-    from localmd_tpu.ops import linalg
+    from localmd_tpu import blocksparse, capabilities
 
     monkeypatch.setattr(capabilities.jax, "default_backend", lambda: "gpu")
     row = capabilities.FAST_PATHS["gpu"]
-    assert engine.coset_stage_eligible(
-        32, 32, 2, engine.identity, engine.identity, None
-    ) is row["coset_stage"]
-    monkeypatch.setattr(linalg, "JACOBI_EIGH", "auto")
-    assert capabilities.resolve(linalg.JACOBI_EIGH, "jacobi_eigh") is row["jacobi_eigh"]
+    assert blocksparse._banded_gram_enabled() is row["banded_gram"]
+    assert blocksparse._coset_vproj_enabled() is row["coset_vproj"]
+    monkeypatch.setattr(blocksparse, "BANDED_GRAM", not row["banded_gram"])
+    monkeypatch.setattr(blocksparse, "COSET_VPROJ", not row["coset_vproj"])
+    assert blocksparse._banded_gram_enabled() is not row["banded_gram"]
+    assert blocksparse._coset_vproj_enabled() is not row["coset_vproj"]
 
 
 # -- compile cache ---------------------------------------------------------------
